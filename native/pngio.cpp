@@ -1,8 +1,8 @@
 // Native PNG decoder for the data-ingestion hot path.
 //
 // The reference's loader layer is native C++ (OpenCV imgcodecs decoding n
-// high-resolution frames, Utilities.cpp:349-395). This is the TPU build's
-// equivalent: a minimal libpng wrapper exposed through a C ABI and driven
+// high-resolution frames, Utilities.cpp:349-395). This is its optional
+// equivalent here: a minimal libpng wrapper exposed through a C ABI and driven
 // from Python via ctypes (srmeetsps_cuda_tpu/io/native_loader.py). Decodes
 // 8-bit RGB/RGBA/gray and 16-bit gray PNGs into caller-allocated buffers
 // (16-bit values are returned host-endian).

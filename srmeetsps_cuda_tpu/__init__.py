@@ -1,7 +1,7 @@
-"""srmeetsps_cuda_tpu — TPU-native depth super-resolution meets
-uncalibrated photometric stereo.
+"""srmeetsps_cuda_tpu — depth super-resolution meets uncalibrated
+photometric stereo, in JAX.
 
-A ground-up JAX/XLA/Pallas re-architecture of the capabilities of
+A ground-up matrix-free JAX/XLA re-architecture of the capabilities of
 nihalsid/SRmeetsPS-CUDA (single-GPU CUDA/cuSPARSE): joint estimation of
 high-resolution depth, per-channel albedo and per-image spherical-harmonic
 lighting from multi-illumination RGB images plus low-resolution depth, via

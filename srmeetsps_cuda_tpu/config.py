@@ -1,4 +1,4 @@
-"""Configuration for the SRmeetsPS-TPU solver.
+"""Configuration for the SRmeetsPS solver.
 
 Mirrors the reference's configuration surface while exposing the hard-coded
 solver constants as first-class options:
@@ -11,8 +11,8 @@ solver constants as first-class options:
 - preprocessing: inpaint radius 16, bilateral sigma 2/2
   (reference ``SRPS.cu:133,139``),
 - CLI keys ``dstype/dsloc/device/blockx/blocky`` (reference ``Main.cpp:10-17``);
-  ``blockx/blocky/device`` are accepted for CLI parity but have no effect on
-  TPU (XLA owns the launch geometry).
+  ``blockx/blocky`` are accepted for CLI parity but have no effect (XLA owns
+  the launch geometry); ``device`` selects the JAX device.
 """
 
 from __future__ import annotations
@@ -54,57 +54,22 @@ class SolverConfig:
     jacobi_preconditioner: bool = False
 
     # Compute dtype for the heavy image reductions ("float32" | "bfloat16").
-    # bfloat16 halves HBM traffic on the two per-iteration passes over I at
-    # a small accuracy cost; accumulation is always float32.
+    # bfloat16 halves the device-memory traffic of the two per-iteration
+    # passes over I at a small accuracy cost; accumulation is always float32.
     image_dtype: str = "float32"
 
-    # Pallas fused kernels for the hot CG matvec (falls back to pure-jnp
-    # lax ops when False or unsupported on the backend).
-    use_pallas: bool = False
-    # Pallas variant: True = the whole CG loop in one kernel launch
-    # (solve/pallas_cg_fused.py); False = two kernel calls per iteration.
-    pallas_fused_loop: bool = True
-    # CG kernel flavour for the fused loop: "pipe" = standard CG,
-    # double-buffered band streaming, two phases per iteration (default;
-    # rounding tracks the jnp CG); "cgs" = Chronopoulos-Gear
-    # single-reduction CG, ONE fused sweep per iteration
-    # (solve/pallas_cg_cgs.py) — an opt-in perf mode whose alpha
-    # recurrence reorders rounding vs standard CG.
-    pallas_cg_variant: str = "pipe"
-    # Fully VMEM-resident CG kernel (solve/pallas_cg_vmem.py) for grids
-    # whose whole CG state fits on-chip VMEM (~1.4 Mpix): the entire solve
-    # is one launch with zero HBM traffic in the iteration loop. Applied
-    # automatically when supported; set False to force the streaming
-    # kernels everywhere.
-    pallas_vmem_resident: bool = True
-    # Track the depth energy inside the VMEM-resident CG kernels
-    # (well-conditioned residual-form evaluation at the warm start +
-    # the scalar-only CG identity E -= alpha * <z,r>, see
-    # pallas_cg_vmem._e0_band) instead of the separate XLA pass over
-    # the 10 coefficient planes. Same quantity up to f32 reassociation
-    # (tested to 5e-4 rel in every residency mode, on hw to 2.3e-5 on
-    # the Mitten fixture; note the energy feeds the outer stopping rule,
-    # so on a problem whose stop decision sits within ~5e-4 rel of the
-    # boundary the outer iteration COUNT can differ from the
-    # kernel_energy=False trajectory — full-solve outer-iteration parity
-    # is asserted on the realistic fixture each run, test_pallas_cg_vmem
-    # ::TestKernelEnergy::test_full_solve_outer_iteration_parity, and the
-    # bench reports per-config iteration counts so a hw flip is visible
-    # round-over-round) and MEASURED FASTER: +0.42 ms/outer-iteration
-    # at cap-100 (tools/profile_kenergy.py, interleaved
-    # order-alternating chained differencing; the harness's --null
-    # self-calibration bounds its bias at 0.06 ms). An earlier literal
-    # per-band <p,r> dot variant cost ~2.0 ms/outer-iter and kept this
-    # opt-in; the scalar identity made it the default. Set False for
-    # bit-exact energy parity with the XLA pass.
-    kernel_energy: bool = True
+    # Depth-CG recurrence on the row-sharded path (``--sharded``): "std" =
+    # standard CG (two reductions per iteration); "cgs" = Chronopoulos-Gear
+    # single-reduction CG (one fused psum per iteration, reorders rounding).
+    # The single-device solve always runs standard CG.
+    cg_variant: str = "std"
 
 
 @dataclasses.dataclass(frozen=True)
 class Preferences:
     """CLI-level preferences, mirroring the reference ``Preferences`` struct
     (Utilities.h:224-230, Main.cpp:5-7). ``block_x/block_y/device_id`` are
-    retained for interface parity; on TPU they are advisory only."""
+    retained for interface parity; the block sizes are advisory only."""
 
     block_x: int = 256
     block_y: int = 4
@@ -138,10 +103,8 @@ class RuntimeConfig:
     # Capture a jax.profiler trace of the solve into this directory.
     profile_dir: Optional[str] = None
     # Multi-object batch execution form (parallel/batched.py::solve_batch):
-    # "stream" = async per-lane dispatch of the resident fused solve
-    # (single-chip throughput optimum), "lockstep" = one lane-batched
-    # launch (single-dispatch latency / multi-chip DP form), "auto" =
-    # stream on one device, lockstep on several.
+    # "stream" = per-lane dispatch of the fused single-problem solve;
+    # "lockstep" = one vmapped program for all lanes; "auto" = stream.
     batch_mode: str = "auto"
     # Run the whole outer loop on-device inside one lax.while_loop (no
     # per-iteration host sync). Iteration metrics are then only available

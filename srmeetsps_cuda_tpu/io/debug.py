@@ -4,7 +4,7 @@ The reference exposes console/MAT dump macros for arbitrary device buffers
 (``PRINT_FROM_DEVICE``/``PRINT_FROM_DEVICE_INT``, Utilities.h:30-52;
 ``WRITE_MAT_FROM_DEVICE*``, Utilities.h:55-73) and for sparse operators
 (``PRINT_SPARSE_CSR``, Utilities.h:90-102; printed 1-based via
-``operator<<``, Utilities.cpp:222-240).  The TPU equivalents here:
+``operator<<``, Utilities.cpp:222-240).  The equivalents here:
 
 * Host side, a device buffer is just an array to fetch — ``print_from_device``
   and ``write_mat_from_device`` take any jax/numpy array (float or int; the
@@ -57,7 +57,7 @@ def print_from_device(arr, pack=None, stream=None) -> None:
 def print_in_jit(arr, name: str = "") -> None:
     """In-``jit`` variant: call on a traced array inside a jitted function
     and the same ``[ ... ];`` line is emitted at run time via
-    ``jax.debug.callback`` — the TPU analog of printing from device code."""
+    ``jax.debug.callback`` — the JAX analog of printing from device code."""
     import jax
 
     def _cb(a):

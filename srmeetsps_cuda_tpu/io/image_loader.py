@@ -13,7 +13,8 @@ reference. Arrays come out row-major ``(n, c, h, w)`` — the transpose of
 the reference's column-major MATLAB layout with identical (row, col) pixel
 indexing.
 
-Decoding uses the native C++ loader (libpng) when built, else PIL.
+Decoding uses the native C++ loader (libpng) when built, else the numpy
+codec in ``io/png.py``.
 """
 
 from __future__ import annotations
@@ -44,15 +45,10 @@ class ProblemData:
 def _decode_png(path: str) -> np.ndarray:
     """Decode a PNG to a numpy array (native loader if available)."""
     from . import native_loader
+    from .png import read_png
 
     arr = native_loader.decode_png(path)
-    if arr is not None:
-        return arr
-    from PIL import Image
-
-    with Image.open(path) as im:
-        a = np.asarray(im)
-    return a
+    return read_png(path) if arr is None else arr
 
 
 def _read_k_file(path: str):
@@ -72,7 +68,7 @@ def _decode_many(files):
     The native libpng decoder runs through ctypes, which releases the GIL,
     so a thread pool gives real decode parallelism (the reference decodes
     its n frames sequentially through cv::imread, Utilities.cpp:330-352);
-    PIL's decoder also drops the GIL for the compress-heavy part."""
+    the numpy codec's zlib inflate also drops the GIL."""
     from concurrent.futures import ThreadPoolExecutor
 
     if len(files) <= 1:

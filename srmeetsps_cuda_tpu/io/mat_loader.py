@@ -25,7 +25,9 @@ def _load_vars_v5(path):
 
 
 def _load_vars_v73(path):
-    import h5py
+    from .writers import import_h5py
+
+    h5py = import_h5py()
 
     out = {}
     with h5py.File(path, "r") as f:

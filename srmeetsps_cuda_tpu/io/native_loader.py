@@ -1,9 +1,10 @@
 """Bridge to the native C++ PNG decoder (native/pngio.cpp).
 
 The reference's data-ingestion layer is native (OpenCV imgcodecs + matio);
-the TPU build keeps a native fast path for the hot part — PNG decode of
-n high-res frames — as a small libpng-based shared library driven through
-ctypes. Falls back to PIL transparently when the library isn't built.
+this build keeps an optional native fast path for the hot part — PNG
+decode of n high-res frames — as a small libpng-based shared library driven
+through ctypes. Falls back to the numpy codec (``io/png.py``) when the
+library isn't built.
 
 Build: ``make -C native`` (produces ``native/libpngio.so``).
 """
@@ -49,7 +50,7 @@ def _load_lib():
 
 def decode_png(path: str) -> Optional[np.ndarray]:
     """Decode a PNG via the native library. Returns None when the native
-    library is unavailable (caller falls back to PIL)."""
+    library is unavailable (caller falls back to ``io/png.py``)."""
     lib = _load_lib()
     if lib is None:
         return None

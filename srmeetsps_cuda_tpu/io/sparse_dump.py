@@ -2,8 +2,8 @@
 
 The reference can dump any sparse operator as a MAT file holding the COO
 triplets ``ii/jj/kk`` plus ``rows/cols`` scalars (``write_MAT_sparse``,
-Utilities.cpp:85-122), MATLAB-diffable via ``sparse(ii+1, jj+1, kk)``. The
-TPU framework designed those matrices out (the operators are dense-grid
+Utilities.cpp:85-122), MATLAB-diffable via ``sparse(ii+1, jj+1, kk)``. This
+framework designed those matrices out (the operators are dense-grid
 stencils/resamples), so this module *reconstructs* the equivalent COO
 triplets from the product's own operator fields — the GradientMasks
 booleans and the LR mask — purely for the verification channel.

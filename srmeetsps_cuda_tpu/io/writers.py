@@ -18,6 +18,17 @@ import numpy as np
 from ..ops.grid import masked_select_colmajor
 
 
+def import_h5py():
+    """h5py, the optional dependency of MAT v7.3 (HDF5) files."""
+    try:
+        import h5py
+    except ImportError as e:
+        raise ImportError("MAT v7.3 (HDF5) files need the optional h5py "
+                          "package; use --dump-format mat5 or npz, or "
+                          "MAT v5 input, without it") from e
+    return h5py
+
+
 _MAT73_CLASS = {
     np.dtype(np.float64): b"double",
     np.dtype(np.float32): b"single",
@@ -35,7 +46,7 @@ def save_mat73(path: str, variables: dict):
     text header (version 0x0200, endian 'IM'), one dataset per variable
     stored transposed (MATLAB column-major vs HDF5 row-major) with a
     ``MATLAB_class`` attribute. Readable by MATLAB >= 7.3 and h5py."""
-    import h5py
+    h5py = import_h5py()
 
     with h5py.File(path, "w", userblock_size=512) as f:
         for name, arr in variables.items():
@@ -64,7 +75,7 @@ def load_mat_any(path: str) -> dict:
         m = sio.loadmat(path)
         return {k: v for k, v in m.items() if not k.startswith("__")}
     except NotImplementedError:
-        import h5py
+        h5py = import_h5py()
 
         out = {}
         with h5py.File(path, "r") as f:
@@ -245,9 +256,9 @@ def depth_image(z, mask) -> np.ndarray:
 
 
 def save_png(path: str, img_u8: np.ndarray):
-    from PIL import Image
+    from .png import write_png
 
-    Image.fromarray(img_u8).save(path)
+    write_png(path, img_u8)
 
 
 def save_visualizations(dirpath: str, state, mask, tag: str = ""):

@@ -1,13 +1,14 @@
 """SRmeetsPS model: the three alternating least-squares estimators.
 
-This is a ground-up TPU-native redesign of the reference solver
+This is a ground-up matrix-free redesign of the reference solver
 (SRPS.cu:276-335 + devicecalls.cu), exploiting structure the CUDA version
 leaves on the table:
 
 * **Lighting** (devicecalls.cu:408-444): the reference solves each of the
   ``n*c`` 4x4 normal-equation systems with sparse CG, incl. 16 device-pointer
-  round-trips per system. Here: two MXU GEMMs build all Gram matrices /
-  right-hand sides at once, then one batched 4x4 ``linalg.solve``. Note
+  round-trips per system. Here: fused multiply-and-reduce passes build all
+  Gram matrices / right-hand sides at once, then one closed-form batched
+  4x4 inverse. Note
   ``A^T A`` is per-channel only (independent of the image index), so just
   ``c`` Gram matrices are formed.
 
@@ -56,7 +57,7 @@ from ..ops import gradients as gradops
 from ..ops import grid as gridops
 from ..ops.gradients import GradientMasks
 from ..ops.normals import normals_from_depth
-from ..solve.cg import CGResult, conjugate_gradient
+from ..solve.cg import conjugate_gradient, vdot
 
 HI = lax.Precision.HIGHEST
 
@@ -64,15 +65,13 @@ HI = lax.Precision.HIGHEST
 class SRPSProblem(NamedTuple):
     """Static problem data (device arrays). Shapes: I (c, n, h*w) —
     channel-major AND pixel-flattened so the per-channel image
-    contractions (s_moments J, lighting ATb) lower to clean c-batched
-    matmuls with NO per-iteration relayout (TPU tiled layouts make an
-    (h,w)->(h*w) reshape a physical 295 MB retile, and XLA does not hoist
-    it out of the outer while_loop); mask (h,w); masks (h/sf, w/sf); z0s
-    like masks; xx/yy (h,w); SI2 (c,h,w); z0t/ktw (h,w) precomputed
-    outer-iteration invariants (KT^T z0s and the KT^T KT weight field) —
-    XLA's while-loop LICM fails to hoist their upsample relayouts too
-    (measured 2.5 ms/outer-iteration). ``build_problem`` takes (n,c,h,w)
-    input (the loader layout) and transposes/flattens once."""
+    contractions (s_moments J, lighting ATb) lower to c-batched matmuls
+    with no per-iteration relayout of the image stack; mask (h,w); masks
+    (h/sf, w/sf); z0s like masks; xx/yy (h,w); SI2 (c,h,w); z0t/ktw (h,w)
+    precomputed outer-iteration invariants (KT^T z0s and the KT^T KT
+    weight field), built once here rather than inside the solve's while
+    loop. ``build_problem`` takes (n,c,h,w) input (the loader layout) and
+    transposes/flattens once."""
 
     I: jax.Array
     mask: jax.Array
@@ -85,11 +84,7 @@ class SRPSProblem(NamedTuple):
     gm: GradientMasks
     SI2: jax.Array  # sum_i I^2, per channel — energy constant term
     z0t: jax.Array  # KT^T z0s (h,w) — depth rhs term, solve-invariant
-    ktw: jax.Array  # mask * up(masks) / sf^4 — KT^T KT weight (h,w)
-    z0up: jax.Array  # (2, hp2, wp) up(masks)/up(masks*z0s), vmem-padded —
-    #   the loop-invariant planes the VMEM CG kernel's energy prologue
-    #   streams (pallas_cg_vmem.energy_planes); built here so it is never
-    #   re-padded inside the fused while loop (XLA does not hoist it)
+    ktw: jax.Array  # mask * up(masks) / sf^4 — diag(KT^T KT) (h,w)
 
 
 class SRPSState(NamedTuple):
@@ -123,7 +118,7 @@ def build_problem(I, mask, K, sf: int, z0s, image_dtype: str = "float32") -> SRP
       sf: integer scale factor.
       z0s: (h/sf, w/sf) preprocessed LR depth (masked).
       image_dtype: "float32" (default) or "bfloat16" — bf16 halves the
-        HBM traffic of the two per-iteration passes over I (reductions
+        memory traffic of the two per-iteration passes over I (reductions
         still accumulate in f32) at a small accuracy cost.
     """
     # Binarize with the reference's imask predicate (mask != 0). Note the
@@ -146,9 +141,6 @@ def build_problem(I, mask, K, sf: int, z0s, image_dtype: str = "float32") -> SRP
         "cnhw->chw", (I * I).astype(jnp.float32))
     z0s = jnp.asarray(z0s, jnp.float32) * masks
     c_, n_ = I.shape[:2]
-    from ..solve.pallas_cg import make_ktw
-    from ..solve.pallas_cg_vmem import energy_planes as _energy_planes
-
     return SRPSProblem(
         I=I.reshape(c_, n_, h * w),
         mask=mask,
@@ -161,8 +153,7 @@ def build_problem(I, mask, K, sf: int, z0s, image_dtype: str = "float32") -> SRP
         gm=GradientMasks.from_mask(mask),
         SI2=SI2,
         z0t=gridops.resample_masked_t(z0s, mask, masks, sf),
-        ktw=make_ktw(mask, masks, sf),
-        z0up=_energy_planes(masks, z0s, (h, w), sf),
+        ktw=gridops.make_ktw(mask, masks, sf),
     )
 
 
@@ -206,54 +197,41 @@ def estimate_lighting(prob: SRPSProblem, rho, N, s_prev=None) -> jax.Array:
     s — so when the direct solve produces non-finite values, ``s_prev`` is
     kept instead.
     """
-    h, w = prob.mask.shape[-2:]
-    c, n = prob.I.shape[-3:-1]
-    # Leading batch dims (the lane-batched path): do NOT vmap this
-    # function. Two-batch-dim (B, c) dots flip XLA's layout preference
-    # for the big I operand — the compiled body then relayouts the whole
-    # stacked image stack (2 x B x 295 MB of copies EVERY outer
-    # iteration, un-hoistable from the while loop; round-4 HLO census,
-    # tools/dump_hlo_batched.py). Merging (B, c) -> one batch axis keeps
-    # the dots in the exact shape class of the single-problem program.
-    lead = rho.shape[:-3]
-    x = c
-    for d in lead:
-        x *= int(d)
-    # Work in flat pixel space: retiling the 7 small inputs (rho, N) once
-    # beats retiling the 12-field product T = rho*N every iteration, and
-    # the flat forms are shared (CSE) with estimate_albedo inside the
-    # jitted outer iteration.
-    rf = rho.reshape(x, h * w)
-    Nf = N.reshape(lead + (4, h * w))
-    If = prob.I.reshape(x, n, h * w)
+    h, w = prob.mask.shape
+    c = prob.I.shape[0]
+    # Work in flat pixel space, on the image stack's own (c, n, h*w)
+    # layout; the flat forms are shared (CSE) with estimate_albedo inside
+    # the jitted outer iteration.
+    rf = rho.reshape(c, h * w)
+    Nf = N.reshape(4, h * w)
     # ATA[c,a,b] = sum_p rho_c^2 N_a N_b — ten unique masked reductions,
     # unrolled over the tiny (a, b) axes so XLA fuses them into one pass
     # over rho/N (materialising T = rho*N costs an extra 2x c x npix
-    # round-trip and the "cap,cbp->cab" einsum lowers transpose-heavy).
-    R2 = (rf * rf).reshape(lead + (c, h * w))  # (...,c,P)
+    # round-trip).
+    R2 = rf * rf  # (c,P)
     ata = {}
     for a in range(4):
         for b in range(a, 4):
-            ata[(a, b)] = jnp.sum(
-                R2 * (Nf[..., a, :] * Nf[..., b, :])[..., None, :], axis=-1)
+            ata[(a, b)] = jnp.sum(R2 * (Nf[a] * Nf[b])[None, :], axis=-1)
     ATA = jnp.stack([
         jnp.stack([ata[(min(a, b), max(a, b))] for b in range(4)], axis=-1)
         for a in range(4)
-    ], axis=-2)  # (...,c,4,4)
-    # ATb[c,n,a] = <rho_c N_a, I_cn> — a c-batched (4,P)@(P,n) matmul on
-    # the channel-major image layout (x-batched when lanes are stacked).
-    T = (rf.reshape(lead + (c, 1, h * w))
-         * Nf[..., None, :, :]).reshape(x, 4, h * w)  # (x,4,P) masked
-    ATb = jnp.einsum("xap,xnp->xna", T, If, precision=HI,
-                     preferred_element_type=jnp.float32)  # (x,n,4)
-    ATb = ATb.reshape(lead + (c, n, 4))
-    # Closed-form 4x4 solve (adjugate/Cramer): batched jnp.linalg.solve
-    # lowers to a per-matrix LU loop on TPU (~1.2 ms/outer-iteration for
-    # the (n,c) batch of sixty 4x4s); the cofactor expansion is ~60
-    # elementwise ops on (c,)-vectors. A singular ATA (degenerate channel)
-    # yields det=0 -> inf/nan, caught by the s_prev retention below.
-    inv = _inv4(ATA)  # (...,c,4,4)
-    sol = jnp.einsum("...cab,...cnb->...nca", inv, ATb, precision=HI)
+    ], axis=-2)  # (c,4,4)
+    # ATb[c,n,a] = <rho_c N_a, I_cn>: a multiply-and-reduce over the
+    # pixels, which XLA fuses into one pass over the image stack. As a
+    # (4,P)@(P,n) matmul it is a GEMM with a 1.2M-long contraction, which
+    # cuBLAS runs in ~36 ms at f32 precision (960x1280, H100) and sums
+    # less accurately than a tree reduction.
+    T = rf[:, None, :] * Nf[None]  # (c,4,P) masked
+    ATb = jnp.sum(T[:, None] * prob.I[:, :, None].astype(jnp.float32),
+                  axis=-1)  # (c,n,4)
+    # Closed-form 4x4 solve (adjugate/Cramer): the cofactor expansion is
+    # ~60 elementwise ops on (c,)-vectors that fuse into one kernel, where
+    # a batched jnp.linalg.solve would launch an LU per matrix. A singular
+    # ATA (degenerate channel) yields det=0 -> inf/nan, caught by the
+    # s_prev retention below.
+    inv = _inv4(ATA)  # (c,4,4)
+    sol = jnp.einsum("cab,cnb->nca", inv, ATb, precision=HI)
     if s_prev is None:
         return sol
     ok = jnp.all(jnp.isfinite(sol), axis=-1, keepdims=True)
@@ -312,38 +290,23 @@ class SMoments(NamedTuple):
 
 
 def s_moments(prob: SRPSProblem, s) -> SMoments:
-    h, w = prob.mask.shape[-2:]
-    c, n = prob.I.shape[-3:-1]
-    # Leading batch dims handled by merging (B, c) -> one batch axis,
-    # same reasoning as estimate_lighting: a two-batch-dim dot flips the
-    # layout XLA assigns to the big I operand and forces whole-stack
-    # relayout copies inside the batched while body (round-4 HLO census,
-    # tools/dump_hlo_batched.py). Do NOT vmap this function.
-    lead = s.shape[:-3]
-    x = c
-    for d in lead:
-        x *= int(d)
-    G = jnp.einsum("...nck,...ncl->...ckl", s, s, precision=HI)
+    h, w = prob.mask.shape
+    c = prob.I.shape[0]
+    G = jnp.einsum("nck,ncl->ckl", s, s, precision=HI)
     # c-batched (4,n)@(n,P) matmul on the pre-flattened channel-major
-    # layout — one clean streaming pass over I — then ONE retile of the
-    # (c,4,P) result to image space. Keeping J flat instead (round-3
-    # experiment) makes every consumer's J[i, k] row read sublane-strided
-    # and costs ~0.6 ms/outer-iteration MORE than this single relayout
-    # (tools/profile_jreads.py: flat 6.81 vs hw 6.17 ms/iter in context;
-    # XLA materialises the retile once — an optimization_barrier here
-    # measured 0.04 ms SLOWER, tools/profile_prod.py).
-    sx = jnp.moveaxis(s, -3, -2).reshape(x, n, 4)  # (...,n,c,k)->(x,n,k)
-    If = prob.I.reshape(x, n, h * w)
-    # s stays f32 even under the bf16 image preset (VERDICT r4 item 6):
-    # quantising the tiny s operand buys no bandwidth (it is (x,n,4)) but
-    # compounds the image quantisation — on TPU hw it pushed the fixture
-    # normals error 10.0 -> 13.6 deg. The mixed f32 x bf16 dot keeps the
-    # halved I-stream reads (the convert fuses into the dot's operand
-    # read — the lighting ATb pass has always run this way).
+    # layout — one streaming pass over I — then one reshape of the
+    # (c,4,P) result to image space, so every consumer's J[i, k] read is
+    # a contiguous plane.
+    sx = jnp.moveaxis(s, 0, 1)  # (n,c,k) -> (c,n,k)
+    # s stays f32 even under the bf16 image preset: quantising the tiny s
+    # operand buys no bandwidth (it is (x,n,4)) but compounds the image
+    # quantisation. The mixed f32 x bf16 dot keeps the halved I-stream
+    # reads (the convert fuses into the dot's operand read, as in the
+    # lighting ATb pass).
     J = jnp.einsum(
-        "xnk,xnp->xkp", sx, If,
+        "cnk,cnp->ckp", sx, prob.I,
         precision=HI, preferred_element_type=jnp.float32,
-    ).reshape(lead + (c, 4, h, w))
+    ).reshape(c, 4, h, w)
     return SMoments(G, J)
 
 
@@ -359,7 +322,7 @@ def estimate_albedo(prob: SRPSProblem, mom: SMoments, N, rho_prev) -> jax.Array:
     zero-correction behaviour on a zero row."""
     # num_c = sum_k N_k J_ck, den_c = sum_kl G_ckl N_k N_l — k/l are tiny
     # static axes, so unroll into elementwise sums XLA fuses into a single
-    # pass (einsums with (h, w) free dims lower transpose-heavy on TPU).
+    # pass (einsums with (h, w) free dims lower to transposing dots).
     # J's (c,4,h,w) layout makes every J[i, k] read a contiguous plane.
     c = mom.J.shape[0]
     num = jnp.stack([
@@ -417,8 +380,7 @@ def build_depth_operator(
     # c is tiny (1 or 3) and static, so the contractions are unrolled into
     # scalar-weighted elementwise sums that XLA fuses into single passes —
     # einsum forms with (h, w) as free/batch dims ("chw,ck->khw",
-    # "chw,ckhw->khw") lower to transpose-heavy dotgenerals on TPU and
-    # cost ~0.1 s over a Mitten solve.
+    # "chw,ckhw->khw") would lower to transposing dot_generals instead.
     c = w1.shape[0]
     h, w = prob.mask.shape
     A00 = sum(w2[i] * G[i, 0, 0] for i in range(c))
@@ -445,7 +407,8 @@ def build_depth_operator(
     QB1 = fx * (B0 - D03) - xx * QB3
     QB2 = fy * (B1 - D13) - yy * QB3
     const = (jnp.sum(prob.SI2) - 2.0 * jnp.sum(rho * mom.J[:, 3])
-             + jnp.vdot(jnp.sum(rho * rho, axis=(1, 2)), G[:, 3, 3]))
+             + jnp.vdot(jnp.sum(rho * rho, axis=(1, 2)), G[:, 3, 3],
+                        precision=HI))
 
     return DepthOperator(P11, P12, P13, P22, P23, P33, QB1, QB2, QB3, const)
 
@@ -462,6 +425,22 @@ def depth_matvec(v, op: DepthOperator, prob: SRPSProblem, sf: int, lam: float):
     kt = gridops.resample_masked(v, prob.masks, sf)
     ktt = gridops.resample_masked_t(kt, prob.mask, prob.masks, sf)
     return ktt + lam * ata
+
+
+def depth_matvec_dot(v, op: DepthOperator, prob: SRPSProblem, sf: int,
+                     lam: float):
+    """``(M v, <v, M v>)``: on a GPU one Pallas kernel
+    (solve/matvec_gpu.py), elsewhere :func:`depth_matvec` and a dot. The
+    branch is chosen where the program is lowered."""
+    from ..solve.matvec_gpu import depth_matvec_dot as gpu_kernel
+
+    def plain(v, op, prob):
+        w = depth_matvec(v, op, prob, sf, lam)
+        return w, vdot(v, w)
+
+    return lax.platform_dependent(
+        v, op, prob, default=plain,
+        cuda=lambda v, op, prob: gpu_kernel(v, op, prob, sf, lam))
 
 
 def depth_rhs(op: DepthOperator, prob: SRPSProblem, sf: int, lam: float):
@@ -514,107 +493,18 @@ def estimate_depth(
     lam = cfg.lam
     op = build_depth_operator(prob, mom, rho, dz, lam)
     matvec = partial(depth_matvec, op=op, prob=prob, sf=sf, lam=lam)
-    h, w = z.shape
-    from ..solve import pallas_cg as _pcg
-
-    # Jacobi-preconditioned Pallas CG: the diag field rides as one more
-    # packed F row and z = r/diag is one VPU multiply in-kernel (the dead
-    # ILU0 intent of devicecalls.cu:285-374, done TPU-right). Only the
-    # pipelined fromop kernel implements it; otherwise Jacobi routes to
-    # the jnp PCG (never silently a different solver trajectory).
-    from ..solve import pallas_cg_vmem as _pvm
-
-    def _vmem_ok(jacobi: bool) -> bool:
-        # Whole-solve-resident kernel: zero HBM traffic in the CG loop.
-        return (cfg.pallas_vmem_resident
-                and _pvm.supported_vmem(h, w, sf, jacobi=jacobi))
-
-    # Quadratic energy partial x'Mx - 2 x'rhs evaluated in the VMEM
-    # kernel's epilogue (one resident sweep) — replaces the separate XLA
-    # energy pass when a VMEM route is taken and cfg.kernel_energy is on.
-    e_part = None
-
-    if (cfg.use_pallas and cfg.jacobi_preconditioner
-            and cfg.pallas_fused_loop and cfg.pallas_cg_variant != "cgs"
-            and (_vmem_ok(True)
-                 or _pcg.supported(h, w, sf, pipelined=True, jacobi=True))):
-        from ..solve.pallas_cg_pipe import cg_pallas_pipelined_fromop
-
-        invd = 1.0 / depth_diag(op, prob, sf, lam)
-        if _vmem_ok(True) and cfg.kernel_energy:
-            x, iters, _, e_part = _pvm.cg_pallas_vmem_fromop(
-                z, op, prob.gm, prob.ktw, prob.z0t, sf=sf, lam=lam,
-                tol=cfg.cg_tol, max_iter=cfg.cg_max_iter, invd=invd,
-                with_energy=True, z0u=prob.z0up)
-        else:
-            cg_fromop = (_pvm.cg_pallas_vmem_fromop if _vmem_ok(True)
-                         else cg_pallas_pipelined_fromop)
-            x, iters, _ = cg_fromop(
-                z, op, prob.gm, prob.ktw, prob.z0t, sf=sf, lam=lam,
-                tol=cfg.cg_tol, max_iter=cfg.cg_max_iter, invd=invd)
-        res = CGResult(x, iters, jnp.float32(0.0))
-    elif (cfg.use_pallas and not cfg.jacobi_preconditioner
-            and _pcg.supported(h, w, sf, pipelined=False)):
-        from ..solve import pallas_cg_cgs as _cgs
-        from ..solve.pallas_cg import cg_pallas
-        from ..solve.pallas_cg_fused import cg_pallas_fused
-        from ..solve.pallas_cg_pipe import cg_pallas_pipelined_fromop
-
-        # ktw / z0t are precomputed problem fields: XLA's while-loop LICM
-        # does not hoist their upsample relayouts, so recomputing them here
-        # cost ~2.5 ms per outer iteration (profiled).
-        ktw = prob.ktw
-        use_cgs = (cfg.pallas_fused_loop and cfg.pallas_cg_variant == "cgs"
-                   and _cgs.supported_cgs(h, w, sf))
-        if use_cgs or (cfg.pallas_fused_loop
-                       and (_vmem_ok(False)
-                            or _pcg.supported(h, w, sf, pipelined=True))):
-            # Mega-kernel with the initial residual built in-kernel — no
-            # host-side rhs/matvec passes at all.
-            if not use_cgs and _vmem_ok(False) and cfg.kernel_energy:
-                x, iters, _, e_part = _pvm.cg_pallas_vmem_fromop(
-                    z, op, prob.gm, ktw, prob.z0t, sf=sf, lam=lam,
-                    tol=cfg.cg_tol, max_iter=cfg.cg_max_iter,
-                    with_energy=True, z0u=prob.z0up)
-            else:
-                cg_fromop = (
-                    _cgs.cg_pallas_cgs if use_cgs
-                    else _pvm.cg_pallas_vmem_fromop if _vmem_ok(False)
-                    else cg_pallas_pipelined_fromop)
-                x, iters, _ = cg_fromop(
-                    z, op, prob.gm, ktw, prob.z0t, sf=sf, lam=lam,
-                    tol=cfg.cg_tol, max_iter=cfg.cg_max_iter)
-        else:
-            # two kernel calls per iteration / single-buffer mega-kernel
-            cg_fn = cg_pallas if not cfg.pallas_fused_loop else cg_pallas_fused
-            b_res = depth_rhs(op, prob, sf, lam) - matvec(z)
-            x, iters, _ = cg_fn(
-                z, b_res, op, prob.gm, ktw, sf=sf, lam=lam,
-                tol=cfg.cg_tol, max_iter=cfg.cg_max_iter)
-        res = CGResult(x, iters, jnp.float32(0.0))
-    else:
-        b_res = depth_rhs(op, prob, sf, lam) - matvec(z)
-        precond = None
-        if cfg.jacobi_preconditioner:
-            diag = depth_diag(op, prob, sf, lam)
-            precond = lambda r: r / diag
-        res = conjugate_gradient(
-            lambda v: matvec(v),
-            b_res,
-            z,
-            tol=cfg.cg_tol,
-            max_iter=cfg.cg_max_iter,
-            precond=precond,
-        )
+    b_res = depth_rhs(op, prob, sf, lam) - matvec(z)
+    precond = None
+    if cfg.jacobi_preconditioner:
+        diag = depth_diag(op, prob, sf, lam)
+        precond = lambda r: r / diag
+    res = conjugate_gradient(
+        matvec, b_res, z, tol=cfg.cg_tol, max_iter=cfg.cg_max_iter,
+        precond=precond,
+        matvec_dot=partial(depth_matvec_dot, op=op, prob=prob, sf=sf,
+                           lam=lam))
     z_new = res.x * prob.mask
-    if e_part is not None:
-        # Same quantity depth_energy computes: the kernel tracks the
-        # x-dependent part exactly (well-conditioned warm-start eval +
-        # the per-iteration CG identity, pallas_cg_vmem._e0_band); only
-        # the x-independent lam * sum B^2 is added here.
-        energy = e_part + lam * op.const
-    else:
-        energy = depth_energy(z_new, op, prob, sf, lam)
+    energy = depth_energy(z_new, op, prob, sf, lam)
     return z_new, energy, res.iterations
 
 
@@ -704,7 +594,8 @@ def solve_fused_traced(
     per-iteration state (s, rho, z, N, dz) in preallocated on-device
     traces, so ``--fused --dump`` can reproduce the reference's
     every-iteration dump channel (SRPS.cu:330-333) without leaving the
-    on-device while_loop. Costs ~(max_iterations + 2) x state-size HBM —
+    on-device while_loop. Costs ~(max_iterations + 2) x state-size of
+    device memory —
     only used when per-iteration dumps were requested."""
     trace_len = cfg.max_iterations + 2
     h, w = prob.mask.shape

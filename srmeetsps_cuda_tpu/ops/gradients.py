@@ -3,7 +3,7 @@
 The reference builds sparse matrices ``Dx``/``Dy`` over the masked pixel set
 (``make_gradient``, SRPS.cu:10-71): per pixel and axis it prefers a forward
 difference to the next masked neighbour and falls back (else-if) to a
-backward difference; pixels with neither neighbour get a zero row. On TPU
+backward difference; pixels with neither neighbour get a zero row. Here
 these are two-point stencils gated by mask-derived boolean fields — pure
 shift + select, fused by XLA, no sparse storage at all.
 

@@ -2,11 +2,11 @@
 
 The reference builds explicit COO/CSR matrices for the downsampling operator
 ``D`` (Utilities.cpp:201-220), its mask-filtered version ``KT``
-(SRPS.cu:170-193) and applies them with cuSPARSE SpMV. On TPU every one of
-these is a *structured* operator on the regular image grid, so we keep all
-state as dense ``(h, w)`` arrays (zeros outside the mask, static shapes for
-XLA) and express the operators as reshapes/reductions that XLA fuses and
-tiles onto the VPU — no gather/scatter, no dynamic shapes.
+(SRPS.cu:170-193) and applies them with cuSPARSE SpMV. Every one of these
+is a *structured* operator on the regular image grid, so we keep all state
+as dense ``(h, w)`` arrays (zeros outside the mask, static shapes for XLA)
+and express the operators as reshapes/reductions that XLA fuses into its
+loop kernels — no gather/scatter, no dynamic shapes.
 
 Conventions
 -----------
@@ -33,8 +33,6 @@ def box_downsample(z: jax.Array, sf: int) -> jax.Array:
     *lead, h, w = z.shape
     if h % sf or w % sf:
         raise ValueError(f"box_downsample: ({h},{w}) not divisible by sf={sf}")
-    # reduce_window instead of reshape+mean: the reshape splits the TPU
-    # lane dimension and forces a relayout (~3x slower on v5e).
     window = (1,) * len(lead) + (sf, sf)
     s = jax.lax.reduce_window(z, 0.0, jax.lax.add, window, window, "VALID")
     return s / float(sf * sf)
@@ -51,6 +49,18 @@ def box_upsample_adjoint(u: jax.Array, sf: int) -> jax.Array:
         u[..., :, None, :, None], (*lead, hl, sf, wl, sf)
     ).reshape(*lead, hl * sf, wl * sf)
     return up / float(sf * sf)
+
+
+def make_ktw(mask: jax.Array, masks: jax.Array, sf: int) -> jax.Array:
+    """``diag(KT^T KT)`` on the HR grid: ``mask * up(masks) / sf^4``.
+
+    Each masked HR pixel under a kept LR pixel has exactly one ``KT`` entry
+    of ``1/sf^2`` in its column, so the diagonal of ``KT^T KT`` is that
+    entry squared (the Jacobi preconditioner's data-term part)."""
+    hl, wl = masks.shape
+    up = jnp.broadcast_to(masks[:, None, :, None], (hl, sf, wl, sf)
+                          ).reshape(hl * sf, wl * sf)
+    return mask * up / float(sf**4)
 
 
 def lr_mask(mask: jax.Array, sf: int) -> jax.Array:
@@ -140,17 +150,3 @@ def masked_scatter_colmajor(values, mask):
     outT[m.T] = values
     return outT.T
 
-
-def pad_to_multiple(arr, mh: int, mw: int, value=0.0):
-    """Pad the trailing two dims up to multiples of (mh, mw).
-
-    TPU-friendly static shapes: padding is masked out downstream, so it's
-    semantically inert. Returns (padded, (h, w)) with the original size.
-    """
-    *lead, h, w = arr.shape
-    ph = (-h) % mh
-    pw = (-w) % mw
-    if ph == 0 and pw == 0:
-        return arr, (h, w)
-    pad = [(0, 0)] * len(lead) + [(0, ph), (0, pw)]
-    return jnp.pad(arr, pad, constant_values=value), (h, w)

@@ -1,4 +1,4 @@
-"""Grid-sharded solve over a TPU mesh (BASELINE.json config 5).
+"""Grid-sharded solve over a device mesh (BASELINE.json config 5).
 
 The scaling axis of this workload is *pixels* (SURVEY.md section 5): the
 masked HR grid is partitioned over a device mesh with axes
@@ -9,10 +9,10 @@ masked HR grid is partitioned over a device mesh with axes
 All model code is pure dense-grid math, so sharding is expressed entirely
 through ``NamedSharding`` annotations under ``jit`` — the XLA SPMD
 partitioner inserts the halo exchanges for the +/-1-pixel gradient
-stencils and the ``psum``-style reductions for the CG dot products over
-ICI automatically; no communication code appears in the model. (A manual
-``shard_map`` + ``ppermute`` halo pipeline is a planned alternative for
-when the compiler's choices need overriding.)
+stencils and the ``psum``-style reductions for the CG dot products
+automatically; no communication code appears in the model. The manual
+``shard_map`` + ``ppermute`` halo CG (parallel/shard_cg.py) behind
+``--sharded`` is the hand-scheduled alternative.
 
 Sharding layout:
   I (n, c, h, w)      -> P(None, None, 'x', 'y')
@@ -152,56 +152,31 @@ def shard_pytree_rows(tree, mesh: Mesh, axis: str = "x"):
 
 def estimate_depth_sharded(prob, mom, rho, dz, z, sf: int,
                            cfg: SolverConfig, mesh: Mesh, axis: str = "x"):
-    """Depth solve routed through the manual shard_map CG (per-shard
-    Pallas band kernels on TPU, jnp matvec otherwise). The operators are
-    built under GSPMD; only the CG hot loop is hand-scheduled."""
-    from . import shard_cg, shard_pallas
+    """Depth solve routed through the manual shard_map halo-exchange CG.
+    The operators are built under GSPMD; only the CG hot loop is
+    hand-scheduled. ``cfg.cg_variant`` picks standard CG ("std") or the
+    single-reduction Chronopoulos-Gear recurrence ("cgs"); Jacobi PCG
+    follows the single-device preconditioned recurrence."""
+    from . import shard_cg
 
     lam = cfg.lam
     op = srps.build_depth_operator(prob, mom, rho, dz, lam)
-    h, w = z.shape
-    n = mesh.shape[axis]
+    rhs = srps.depth_rhs(op, prob, sf, lam)
+    b_res = rhs - srps.depth_matvec(z, op, prob, sf, lam)
+    kw = dict(sf=sf, lam=lam, tol=cfg.cg_tol, max_iter=cfg.cg_max_iter)
     if cfg.jacobi_preconditioner:
-        # Jacobi-PCG sharded path (the --fast preset's scale-out form):
-        # same recurrence as the single-chip preconditioned solve.cg.
-        # With Pallas: per-shard std kernel pair with the z row + jacobi
-        # phase B (shard_pallas). Otherwise: the jnp shard_map halo loop.
+        if cfg.cg_variant == "cgs":
+            raise ValueError("cg_variant='cgs' has no preconditioned "
+                             "recurrence; use 'std' with Jacobi")
         invd = 1.0 / srps.depth_diag(op, prob, sf, lam)
-        if (cfg.use_pallas
-                and shard_pallas.shard_pallas_supported(h, w, sf, n)):
-            x, k, _ = shard_pallas.cg_sharded_pallas_std(
-                mesh, axis, z, op, prob.gm, prob.mask, prob.masks,
-                prob.z0t, sf=sf, lam=lam, tol=cfg.cg_tol,
-                max_iter=cfg.cg_max_iter, invd=invd)
-        else:
-            rhs = srps.depth_rhs(op, prob, sf, lam)
-            b_res = rhs - srps.depth_matvec(z, op, prob, sf, lam)
-            x, k, _ = shard_cg.cg_sharded_jacobi(
-                mesh, axis, z, b_res, invd, op, prob.gm, prob.mask,
-                prob.masks, sf=sf, lam=lam, tol=cfg.cg_tol,
-                max_iter=cfg.cg_max_iter)
-        z_new = x * prob.mask
-        energy = srps.depth_energy(z_new, op, prob, sf, lam)
-        return z_new, energy, k
-    use_pallas = (cfg.use_pallas
-                  and shard_pallas.shard_pallas_supported(h, w, sf, n))
-    if use_pallas:
-        # Per-shard Pallas kernels with the in-kernel r0 prologue — no
-        # jnp rhs/matvec passes at all. CGS = single-reduction flagship.
-        cg_fn = (shard_pallas.cg_sharded_pallas_cgs
-                 if cfg.pallas_cg_variant == "cgs"
-                 else shard_pallas.cg_sharded_pallas_std)
-        x, k, _ = cg_fn(mesh, axis, z, op, prob.gm, prob.mask, prob.masks,
-                        prob.z0t, sf=sf, lam=lam, tol=cfg.cg_tol,
-                        max_iter=cfg.cg_max_iter)
+        x, k, _ = shard_cg.cg_sharded_jacobi(
+            mesh, axis, z, b_res, invd, op, prob.gm, prob.mask, prob.masks,
+            **kw)
     else:
-        rhs = srps.depth_rhs(op, prob, sf, lam)
-        b_res = rhs - srps.depth_matvec(z, op, prob, sf, lam)
-        cg_fn = (shard_cg.cg_sharded_cgs if cfg.pallas_cg_variant == "cgs"
+        cg_fn = (shard_cg.cg_sharded_cgs if cfg.cg_variant == "cgs"
                  else shard_cg.cg_sharded)
         x, k, _ = cg_fn(mesh, axis, z, b_res, op, prob.gm, prob.mask,
-                        prob.masks, sf=sf, lam=lam, tol=cfg.cg_tol,
-                        max_iter=cfg.cg_max_iter)
+                        prob.masks, **kw)
     z_new = x * prob.mask
     energy = srps.depth_energy(z_new, op, prob, sf, lam)
     return z_new, energy, k
@@ -297,9 +272,8 @@ def dryrun(n_devices: int, batch: Optional[int] = None) -> None:
     state_b = shard_pytree(state_b, mesh, batched=True)
 
     step = jax.vmap(lambda st, pb: srps.srps_iteration(st, pb, sf, cfg))
-    with jax.sharding.use_mesh(mesh) if hasattr(jax.sharding, "use_mesh") else mesh:
-        out = jax.jit(step)(state_b, prob_b)
-        jax.block_until_ready(out)
+    out = jax.jit(step)(state_b, prob_b)
+    jax.block_until_ready(out)
     assert np.all(np.isfinite(np.asarray(out.energy))), "non-finite energy"
 
     # Also exercise the manual 1D row-band path (shard_map halo-exchange
@@ -324,15 +298,14 @@ def dryrun(n_devices: int, batch: Optional[int] = None) -> None:
 
     # And the single-reduction (Chronopoulos-Gear) sharded CG variant —
     # one fused psum pair per iteration.
-    cfg_cgs = SolverConfig(max_iterations=2, pallas_cg_variant="cgs")
+    cfg_cgs = SolverConfig(max_iterations=2, cg_variant="cgs")
     st2_out, _ = jax.jit(
         partial(solve_fused_sharded, sf=sf, cfg=cfg_cgs, mesh=mesh1))(st1, pb1)
     jax.block_until_ready(st2_out)
     assert np.isfinite(float(st2_out.energy)), "non-finite cgs-sharded energy"
 
-    # Jacobi-preconditioned sharded CG (the --fast preset's scale-out
-    # form, VERDICT r4 item 4): one fused (rz, rr) psum + one <p,w> psum
-    # per iteration.
+    # Jacobi-preconditioned sharded CG: one fused (rz, rr) psum + one
+    # <p,w> psum per iteration.
     cfg_j = SolverConfig(max_iterations=2, jacobi_preconditioner=True,
                          cg_max_iter=10)
     stj_out, _ = jax.jit(
@@ -340,30 +313,3 @@ def dryrun(n_devices: int, batch: Optional[int] = None) -> None:
     jax.block_until_ready(stj_out)
     assert np.isfinite(float(stj_out.energy)), (
         "non-finite jacobi-sharded energy")
-
-    # Per-shard Pallas kernels (gen-2: prologue + CGS sweep / std pair) in
-    # interpret mode — proves the multi-chip sharding of the kernelized
-    # paths traces, compiles and executes on the mesh.
-    from ..solve import pallas_cg as _pcg
-
-    old_interp = _pcg.INTERPRET
-    _pcg.INTERPRET = True
-    try:
-        for variant in ("cgs", "pipe"):
-            cfg_p = SolverConfig(max_iterations=1, cg_max_iter=5,
-                                 use_pallas=True, pallas_cg_variant=variant)
-            stp, _ = jax.jit(partial(
-                solve_fused_sharded, sf=sf, cfg=cfg_p, mesh=mesh1))(st1, pb1)
-            jax.block_until_ready(stp)
-            assert np.isfinite(float(stp.energy)), (
-                f"non-finite pallas-sharded energy ({variant})")
-        # Per-shard Pallas jacobi (std kernel pair + z row).
-        cfg_pj = SolverConfig(max_iterations=1, cg_max_iter=5,
-                              use_pallas=True, jacobi_preconditioner=True)
-        stpj, _ = jax.jit(partial(
-            solve_fused_sharded, sf=sf, cfg=cfg_pj, mesh=mesh1))(st1, pb1)
-        jax.block_until_ready(stpj)
-        assert np.isfinite(float(stpj.energy)), (
-            "non-finite pallas-jacobi-sharded energy")
-    finally:
-        _pcg.INTERPRET = old_interp

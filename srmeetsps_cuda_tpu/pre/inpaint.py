@@ -2,7 +2,7 @@
 
 The reference fills missing LR depth (pixels where any frame reported 0)
 with OpenCV's Telea fast-marching inpaint, radius 16 (SRPS.cu:129-133).
-Telea's FMM is inherently sequential; the TPU-native equivalent is a
+Telea's FMM is inherently sequential; the data-parallel equivalent is a
 confidence-weighted diffusion fill: a coarse-to-fine pyramid seed (so
 arbitrarily large holes converge in O(log) work) followed by Jacobi
 smoothing iterations of the masked harmonic equation. Acceptance is
@@ -13,6 +13,8 @@ that are almost all inside the valid mask anyway.
 """
 
 from __future__ import annotations
+
+from functools import partial
 
 import jax
 import jax.numpy as jnp
@@ -46,6 +48,7 @@ def _up2(x, h, w):
     return up[:h, :w]
 
 
+@partial(jax.jit, static_argnames=("iters",))
 def inpaint_diffusion(img: jax.Array, holes: jax.Array, iters: int = 256) -> jax.Array:
     """Fill ``holes`` (bool/0-1 array, 1 = missing) in ``img``.
 

@@ -7,8 +7,8 @@ and replicate clamping of the 4-tap neighbourhood at the borders.
 
 Separable implementation as two dense interpolation-matrix GEMMs
 (``W_h @ img @ W_w^T``) — the matrices are built host-side once per shape
-and the GEMMs run on the MXU, so this is also the fast path for repeated /
-batched use (vmap maps it to batched GEMM).
+and the GEMMs go to the device's matrix library, so this is also the fast
+path for repeated / batched use (vmap maps it to batched GEMM).
 """
 
 from __future__ import annotations

@@ -2,7 +2,7 @@
 
 This module mirrors the reference's sparse-matrix constructions and dense
 math in plain NumPy/SciPy (column-major index space, explicit COO), so the
-TPU framework's dense-grid operators can be validated against the exact
+framework's dense-grid operators can be validated against the exact
 masked-matrix behaviour (SURVEY.md section 4). Test-only code — never on the
 product path.
 
@@ -201,4 +201,31 @@ def cg(M, b, x0, tol=1e-9, max_iter=100, dtype=np.float64):
         x = (x + alpha * p).astype(dtype)
         r = (r - alpha * w).astype(dtype)
         r0, r1 = r1, float(r @ r)
+    return x, k
+
+
+def pcg_jacobi(M, b, x0, tol=1e-9, max_iter=100):
+    """Jacobi-preconditioned CG with solve/cg.py's recurrence (rz-driven
+    beta/alpha, plain <r,r> stopping, the reference's ``k <= max_iter``),
+    in float64; the diagonal's zero entries are replaced by 1."""
+    d = M.diagonal().astype(np.float64)
+    d = np.where(d > 0, d, 1.0)
+    M = M.astype(np.float64)
+    x = np.array(x0, dtype=np.float64)
+    r = np.array(b, dtype=np.float64)
+    z = r / d
+    p = np.zeros_like(r)
+    rz0, rz1, rr = 0.0, float(r @ z), float(r @ r)
+    k = 0
+    while rr > tol * tol and k <= max_iter:
+        k += 1
+        beta = 0.0 if k == 1 else rz1 / (rz0 if rz0 != 0 else 1.0)
+        p = z + beta * p
+        w = M @ p
+        pw = float(p @ w)
+        alpha = rz1 / (pw if pw != 0 else 1.0)
+        x = x + alpha * p
+        r = r - alpha * w
+        z = r / d
+        rz0, rz1, rr = rz1, float(r @ z), float(r @ r)
     return x, k

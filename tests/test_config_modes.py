@@ -68,6 +68,6 @@ class TestCLIParse:
 
         p = build_parser()
         a = p.parse_args(["--dsloc", "/x", "--lambda", "2.5", "--jacobi",
-                          "--fused", "--pallas", "--nan-check"])
-        assert a.lam == 2.5 and a.jacobi and a.fused and a.pallas
+                          "--fused", "--nan-check"])
+        assert a.lam == 2.5 and a.jacobi and a.fused
         assert a.nan_check

@@ -111,42 +111,13 @@ def _mean_angular_error_deg(N, N_true, m):
 
 def exact_consistency_data(rng, hf_amp=1.5, h=48, w=32, sf=2, n=6, c=3,
                            noise=1.0):
-    """Fixture rendered with the solver's OWN masked-stencil normals, so
-    photometric consistency is exact: I = rho * (N(z_true) . s). The
-    surface carries high-frequency detail (wavelength ~2.6 px) that the
-    bicubic initialisation cannot recover from the sf-downsampled depth —
-    the information exists only in the images."""
-    import jax.numpy as jnp
+    """The package's exactly-consistent renderer (io/synthetic.py) on a
+    random blob mask: high-frequency detail invisible to the bicubic
+    initialisation, recoverable only from the images."""
+    from srmeetsps_cuda_tpu.io.synthetic import render_consistent
 
-    from srmeetsps_cuda_tpu.ops import gradients as gradops
-    from srmeetsps_cuda_tpu.ops.grid import meshgrid_camera
-    from srmeetsps_cuda_tpu.ops.normals import normals_from_depth
-
-    yy0, xx0 = np.mgrid[0:h, 0:w]
-    z_true = (80 + 6 * np.sin(xx0 / 5.0) + 5 * np.cos(yy0 / 6.0)
-              + hf_amp * np.sin(2.4 * xx0) * np.cos(2.2 * yy0)
-              ).astype(np.float32)
-    mask = random_mask(rng, h, w)
-    fx = fy = 400.0
-    cx, cy = w / 2 - 0.5, h / 2 - 0.5
-    gm = gradops.GradientMasks.from_mask(jnp.asarray(mask))
-    zt = jnp.asarray(z_true * mask)
-    zx, zy = gradops.grad_x(zt, gm), gradops.grad_y(zt, gm)
-    xx, yy = meshgrid_camera(h, w, cx, cy)
-    N_true, _ = normals_from_depth(zt, zx, zy, xx * mask, yy * mask,
-                                   jnp.asarray(mask), fx, fy)
-    N_true = np.asarray(N_true)
-    rho_true = (0.4 + 0.3 * rng.random((c, 1, 1))).astype(np.float32)
-    I = np.empty((n, c, h, w), np.float32)
-    for i in range(n):
-        s = np.array([0.2, 0.2, -0.9, 0.3]) + 0.2 * rng.standard_normal(4)
-        shade = np.einsum("k,khw->hw", s.astype(np.float32), N_true)
-        I[i] = (rho_true * shade[None]) * mask
-    z0 = np.stack([
-        z_true[::sf, ::sf] + noise * rng.standard_normal((h // sf, w // sf))
-        for _ in range(n)]).astype(np.float32)
-    K = np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1]], np.float32)
-    return ProblemData(I=I, K=K, mask=mask, sf=sf, z0=z0), z_true, N_true
+    return render_consistent(rng, random_mask(rng, h, w), sf=sf, n=n, c=c,
+                             hf_amp=hf_amp, noise=noise)
 
 
 @pytest.mark.parametrize("sf", [2, 4])
@@ -205,28 +176,3 @@ def test_e2e_full_mask(rng):
     cfg = SolverConfig(inpaint_iters=32, max_iterations=2)
     final, metrics = solve(data, cfg, RuntimeConfig(), verbose=False)
     assert np.isfinite(float(final.energy))
-
-
-def test_pallas_sf1_interpret(rng):
-    """sf=1 (no super-resolution, pure photometric refinement) through the
-    pallas kernels in interpret mode."""
-    from srmeetsps_cuda_tpu.solve import pallas_cg
-    from srmeetsps_cuda_tpu.models import srps as m
-    import jax.numpy as jnp
-
-    old = pallas_cg.INTERPRET
-    pallas_cg.INTERPRET = True
-    try:
-        mask = random_mask(rng, 32, 32)
-        I = rng.random((3, 3, 32, 32)).astype(np.float32)
-        K = [[300.0, 0, 15.5], [0, 300.0, 15.5], [0, 0, 1]]
-        z0s = (rng.random((32, 32)).astype(np.float32) + 0.5)
-        prob = m.build_problem(I, mask, K, 1, z0s)
-        st = m.init_state(prob, (rng.random((32, 32)).astype(np.float32) + 0.5) * mask)
-        cfg_p = SolverConfig(use_pallas=True, cg_max_iter=10)
-        cfg_j = SolverConfig(cg_max_iter=10)
-        sp = m.srps_iteration(st, prob, 1, cfg_p)
-        sj = m.srps_iteration(st, prob, 1, cfg_j)
-        np.testing.assert_allclose(float(sp.energy), float(sj.energy), rtol=1e-2)
-    finally:
-        pallas_cg.INTERPRET = old

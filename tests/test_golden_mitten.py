@@ -2,7 +2,7 @@
 
 The reference's entire verification story is per-iteration MAT dumps diffed
 against the MATLAB implementation on real datasets (SRPS.cu:330-333,
-README.md:6). This suite is that channel for the TPU rebuild: the ACTUAL
+README.md:6). This suite is that channel for this rebuild: the ACTUAL
 Mitten dataset (strided 8x so the scipy oracle stays fast — real intensity
 statistics, real mask topology, real missing-depth holes) run through the
 full chain on both sides.

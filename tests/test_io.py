@@ -151,3 +151,22 @@ class TestEndToEndSmall:
         assert np.isfinite(float(st.energy))
         assert len(metrics) >= 1
         assert metrics[0]["energy"] > 0
+
+
+def test_mat73_without_h5py_names_it(monkeypatch, tmp_path):
+    """h5py is optional: a MAT v7.3 request without it fails with a message
+    that names the package."""
+    import builtins
+
+    from srmeetsps_cuda_tpu.io import writers
+
+    real_import = builtins.__import__
+
+    def no_h5py(name, *args, **kwargs):
+        if name == "h5py":
+            raise ImportError("No module named 'h5py'")
+        return real_import(name, *args, **kwargs)
+
+    monkeypatch.setattr(builtins, "__import__", no_h5py)
+    with pytest.raises(ImportError, match="h5py"):
+        writers.save_mat73(str(tmp_path / "x.mat"), {"x": np.zeros(3)})

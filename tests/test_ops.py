@@ -3,6 +3,7 @@ the reference's COO constructions)."""
 
 import numpy as np
 import jax.numpy as jnp
+import pytest
 
 from conftest import random_mask
 from srmeetsps_cuda_tpu.ops import grid, gradients, normals
@@ -74,6 +75,23 @@ class TestLRMaskAndKT:
         )
         got_pack = pack_cm(got2d, mask)
         np.testing.assert_allclose(got_pack, want_pack, rtol=1e-5, atol=1e-7)
+
+
+class TestKtw:
+    @pytest.mark.parametrize("mask_kind", ["blob", "random", "full"])
+    @pytest.mark.parametrize("sf", [1, 2, 4])
+    def test_make_ktw_is_diag_KTtKT(self, rng, sf, mask_kind):
+        """ops.grid.make_ktw == diag(KT^T KT) of the oracle's explicit KT,
+        on the HR grid (zero off the mask and under dropped LR pixels)."""
+        h, w = 24, 16
+        mask = (np.ones((h, w), np.float32) if mask_kind == "full"
+                else random_mask(rng, h, w, blob=(mask_kind == "blob")))
+        _, _, KT = oracle.lr_mask_and_KT(mask.T.ravel(), h, w, sf)
+        masks2d = grid.lr_mask(jnp.asarray(mask), sf)
+        got = np.asarray(grid.make_ktw(jnp.asarray(mask), masks2d, sf))
+        want = np.asarray((KT.T @ KT).diagonal()).ravel()
+        np.testing.assert_allclose(pack_cm(got, mask), want, rtol=1e-6)
+        assert np.all(got[mask == 0] == 0)
 
 
 class TestGradients:

@@ -105,12 +105,13 @@ class TestBatchedStreaming:
                     int(np.isfinite(np.asarray(t_lk[b])).sum()))
             np.testing.assert_allclose(np.asarray(t_st[b])[:n],
                                        np.asarray(t_lk[b])[:n], rtol=1e-2)
-        # "auto" on the 8-device CPU test mesh = lockstep (multi-device).
-        assert batched.resolve_batch_mode("auto") == "lockstep"
+        # "auto" = stream, also with several devices visible (the
+        # 8-device CPU test mesh).
+        assert batched.resolve_batch_mode("auto") == "stream"
         f_a, t_a = batched.solve_batch(states, probs, sf, cfg, mode="auto")
         for b in range(2):
             np.testing.assert_array_equal(np.asarray(t_a[b]),
-                                          np.asarray(t_lk[b]))
+                                          np.asarray(t_st[b]))
         with pytest.raises(ValueError):
             batched.solve_batch(states, probs, sf, cfg, mode="bogus")
 
@@ -206,3 +207,45 @@ class TestMixedGeometryPadding:
         np.testing.assert_allclose(np.asarray(fb.z)[:h, :w],
                                    np.asarray(fa.z), rtol=1e-3, atol=1e-3)
         assert float(np.abs(np.asarray(fb.z)[h:]).max()) == 0.0
+
+
+class TestBatchRoutes:
+    """The three ways to solve a batch agree: lockstep (one vmapped
+    program), stream (the solo program per lane) and solo solves; stream
+    lanes are bit-identical to solo."""
+
+    @pytest.mark.parametrize("geometry", ["same", "mixed"])
+    @pytest.mark.parametrize("jacobi", [False, True], ids=["plain", "jacobi"])
+    @pytest.mark.parametrize("sf", [2, 4])
+    def test_lockstep_stream_solo_agree(self, rng, sf, jacobi, geometry):
+        from srmeetsps_cuda_tpu.io.image_loader import ProblemData
+        from srmeetsps_cuda_tpu.runtime.solver import _jit_solve_fused, prepare
+
+        cfg = SolverConfig(max_iterations=2, cg_max_iter=10, inpaint_iters=8,
+                           jacobi_preconditioner=jacobi)
+        sizes = [(24, 16), (24, 16) if geometry == "same" else (32, 24)]
+        pad_to = None if geometry == "same" else (32, 24)
+        probs, states = [], []
+        for h, w in sizes:
+            K = np.array([[200.0, 0, w / 2 - 0.5], [0, 200.0, h / 2 - 0.5],
+                          [0, 0, 1]], np.float32)
+            z0 = ((rng.random((3, h // sf, w // sf)) + 1.0) * 50).astype(
+                np.float32)
+            data = ProblemData(I=rng.random((3, 3, h, w)).astype(np.float32),
+                               K=K, mask=random_mask(rng, h, w), sf=sf, z0=z0)
+            pb, st = prepare(data, cfg, pad_to=pad_to)
+            probs.append(pb)
+            states.append(st)
+        f_st, t_st = batched.solve_batch(states, probs, sf, cfg, mode="stream")
+        f_lk, t_lk = batched.solve_batch(states, probs, sf, cfg,
+                                         mode="lockstep")
+        for b in range(2):
+            f_solo, t_solo = _jit_solve_fused(states[b], probs[b], sf, cfg)
+            np.testing.assert_array_equal(np.asarray(t_st[b]),
+                                          np.asarray(t_solo))
+            np.testing.assert_array_equal(np.asarray(f_st[b].z),
+                                          np.asarray(f_solo.z))
+            n = int(f_solo.iteration)
+            assert int(np.isfinite(np.asarray(t_lk[b])).sum()) == n
+            np.testing.assert_allclose(np.asarray(t_lk[b])[:n],
+                                       np.asarray(t_solo)[:n], rtol=1e-2)

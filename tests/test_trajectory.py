@@ -1,7 +1,7 @@
 """Full alternating-optimization trajectory parity vs the oracle.
 
 The strongest correctness test: run the complete outer loop both in the
-TPU framework (dense masked grids, collapsed Gram-field operators,
+framework (dense masked grids, collapsed Gram-field operators,
 matrix-free f32 CG) and in the oracle (explicit sparse matrices mirroring
 the reference's COO construction, f64 CG), and compare s / rho / z after
 every iteration. This exercises the exact interplay the reference binary
